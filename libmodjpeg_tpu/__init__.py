@@ -1,13 +1,13 @@
-"""libmodjpeg_tpu — TPU-native JPEG DCT-domain compositing engine.
+"""libmodjpeg_tpu — JPEG DCT-domain compositing engine in JAX.
 
 A from-scratch reimplementation of the capabilities of libmodjpeg
-(https://github.com/ioppermann/libmodjpeg) designed TPU-first:
+(https://github.com/ioppermann/libmodjpeg), run on an NVIDIA GPU:
 
 * a from-scratch parallel C++ entropy codec (restart-marker-segmented
   Huffman/arithmetic decode + encode) replaces libjpeg delegation;
 * dequantize → masked DCT-domain compose → requantize run as dense batched
-  JAX/XLA/Pallas kernels over 8x8 coefficient blocks (Jonsson ICIP'97
-  masked composition, computed as batched 8x8 matmuls on the MXU);
+  JAX/XLA programs over 8x8 coefficient blocks (Jonsson ICIP'97 masked
+  composition, computed as batched matmuls);
 * batches and MCU tile grids shard over a `jax.sharding.Mesh`.
 
 Public API mirrors the mj_* lifecycle of the reference

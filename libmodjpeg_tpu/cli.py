@@ -91,6 +91,9 @@ _TAKES_ARG = {"-i", "-o", "-d", "-p", "-m", "-y", "-b", "-r", "-R"}
 
 
 def main(argv=None) -> int:
+    from .compile_cache import use_compile_cache
+
+    use_compile_cache()
     argv = list(sys.argv[1:] if argv is None else argv)
     img = None
     position = C.ALIGN_TOP | C.ALIGN_LEFT  # modjpeg.c:53

@@ -3,7 +3,7 @@
 // From-scratch JPEG (ITU-T T.81) entropy-layer codec: it moves between the
 // compressed bitstream and dense quantized-DCT coefficient arrays.  There is
 // deliberately NO IDCT, color conversion or upsampling here — all pixel-domain
-// math lives on the TPU (JAX/Pallas).  This replaces the reference's
+// math lives on the device (JAX).  This replaces the reference's
 // delegation to libjpeg (/root/reference/src/image.c:94,191-194) with a
 // parallel design: restart-marker-segmented scans decode on multiple threads,
 // and encode can emit restart-segmented streams whose byte-aligned segments

@@ -421,28 +421,11 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", plat)
-    # Persistent XLA compilation cache: a corpus worker is a short-lived
-    # batch process, so cold-start jit compilation (~3 s) would otherwise
-    # be paid per process per run — on a pod it is paid once per binary
-    # version.  MJT_COMPILE_CACHE overrides the location; "0" disables.
-    cache_env = os.environ.get("MJT_COMPILE_CACHE")
-    cache = cache_env or os.path.join(os.path.expanduser("~"), ".cache",
-                                      "libmodjpeg_tpu", "xla")
-    if cache != "0":
-        try:
-            os.makedirs(cache, exist_ok=True)
-            import jax
+    # a corpus worker is a short-lived batch process: reuse what earlier
+    # runs compiled instead of paying cold-start compilation per process
+    from .compile_cache import use_compile_cache
 
-            jax.config.update("jax_compilation_cache_dir", cache)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                              0.1)
-        except Exception as e:
-            # the cache is an optimization; never fail the run for it —
-            # but an operator who SET the path deserves to know it is off
-            # (every short-lived worker then re-pays ~3 s of compilation)
-            if cache_env:
-                print(f"warning: MJT_COMPILE_CACHE={cache_env} unusable "
-                      f"({e}); compilation cache disabled", file=sys.stderr)
+    use_compile_cache()
     from .parallel.session import init_distributed
 
     init_distributed()  # no-op unless MJT_COORDINATOR is configured

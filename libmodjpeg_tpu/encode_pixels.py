@@ -3,7 +3,7 @@
 The reference only encodes raw pixels internally for dropon compilation
 (image.c:257-347, always Q100).  Here it is a public capability: color
 convert, subsample, forward-DCT and quantize a pixel image at any quality on
-the TPU, producing a CoefImage ready for the entropy encoder.
+the device, producing a CoefImage ready for the entropy encoder.
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """Coefficient-domain data model.
 
-TPU-first design decision: unlike the reference, which keeps coefficients in
+Design decision: unlike the reference, which keeps coefficients in
 libjpeg virtual block arrays attached to a live decompress struct
 (/root/reference/src/libmodjpeg.h:99-107), coefficients here are dense numpy /
 JAX arrays of shape ``[rows_padded, cols_padded, 8, 8]`` per component in
 natural (row-major spatial-frequency) order, zero-padded to the MCU multiple.
-That layout batches directly onto the VPU/MXU and shards cleanly over a device
+That layout batches directly into device matmuls and shards cleanly over a device
 mesh along the leading (block-grid) axes.
 """
 

@@ -4,8 +4,7 @@ The reference never runs its own FDCT: it re-encodes the dropon through
 libjpeg at quality 100 to obtain subsampled DCT coefficients
 (dropon.c:376, image.c:257-347).  Here the dropon compilation pipeline is
 computed directly on device: RGB->YCbCr, box-filter chroma subsampling, and a
-batched 8x8 forward DCT expressed as two matmuls per block — exactly the
-shape the MXU wants.  At quality 100 every libjpeg quantval is 1, so
+batched 8x8 forward DCT expressed as two matmuls per block.  At quality 100 every libjpeg quantval is 1, so
 "quantized at Q100" is simply round-to-nearest-integer.
 """
 

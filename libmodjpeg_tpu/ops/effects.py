@@ -1,7 +1,7 @@
 """DCT-domain effects as vectorized device ops (effect.c parity).
 
 All four effects are elementwise over the block grid — embarrassingly
-parallel on the VPU, trivially shardable over a mesh (SURVEY.md §3.5).
+parallel, trivially shardable over a mesh (SURVEY.md §3.5).
 """
 
 from __future__ import annotations

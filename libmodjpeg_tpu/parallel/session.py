@@ -129,12 +129,12 @@ def init_distributed(coordinator: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      cpu_collectives: Optional[str] = None) -> bool:
-    """Initialize jax.distributed for multi-host pod runs.
+    """Initialize jax.distributed for runs that span several processes.
 
     Reads MJT_COORDINATOR / MJT_NUM_PROCS / MJT_PROC_ID when args are None;
     no-op (returns False) when no coordinator is configured, so single-host
-    runs need no special casing.  On TPU pods the cross-host collectives ride
-    ICI natively; on CPU backends (multi-process tests, DCN-only fleets)
+    runs need no special casing.  On GPUs the cross-process collectives go
+    through NCCL; on CPU backends (the multi-process tests)
     ``cpu_collectives`` / MJT_CPU_COLLECTIVES selects the transport
     (e.g. "gloo") — it must be set before the backend initializes, which this
     helper guarantees by being the first jax call of the process.

@@ -1,8 +1,8 @@
 """CoefImage -> pixels on device (dequant + IDCT + upsample + color convert).
 
 Replaces the reference's delegation to libjpeg's decompressor for dropon
-ingestion (image.c:349-451): dequantization and the IDCT are batched matmuls
-(MXU food), upsampling/color conversion are vectorized elementwise ops.
+ingestion (image.c:349-451): dequantization and the IDCT are batched matmuls,
+upsampling/color conversion are vectorized elementwise ops.
 """
 
 from __future__ import annotations

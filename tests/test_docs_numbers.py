@@ -1,24 +1,9 @@
-"""The one-table number policy, enforced mechanically (round-3 verdict #5).
-
-docs/STATUS.md's measured block must regenerate byte-identically from the
-newest BENCH_r*.json — a perf commit that lands without re-running
-``python tools/gen_status_metrics.py`` fails here instead of drifting for a
-round.
-"""
+"""The number policy: measured figures live in PERF.md and the ledger,
+never in the README."""
 
 import os
-import subprocess
-import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def test_status_bench_block_is_current():
-    r = subprocess.run(
-        [sys.executable, os.path.join(REPO, "tools", "gen_status_metrics.py"),
-         "--check"],
-        capture_output=True, text=True)
-    assert r.returncode == 0, r.stderr or r.stdout
 
 
 def test_readme_carries_no_absolute_throughput():
