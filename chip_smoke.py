@@ -280,39 +280,6 @@ def stream_phase(dev, ref, n_free=64, n_rst=32, batch=32, width=1920,
 
 # ------------------------------------------------------------------- grid --
 
-def make_grid_frame(seed, width, height):
-    """A 4:2:0 coefficient frame with camera-like statistics: DC spread
-    over the 8-bit range, AC Laplacian with a scale that falls with
-    frequency (so the optimize histogram sees real run/size symbols)."""
-    from libmodjpeg_tpu.model import (CoefImage, ComponentInfo, Sampling)
-
-    rng = np.random.RandomState(seed)
-    u = np.arange(8)
-    scale = 24.0 / (1.0 + u[:, None] + u[None, :]) ** 1.5
-    comps, coefs = [], []
-    for c, (h, v) in enumerate([(2, 2), (1, 1), (1, 1)]):
-        wb, hb = width // 8 // (2 // h), height // 8 // (2 // v)
-        comps.append(ComponentInfo(
-            component_id=c + 1, h_samp=h, v_samp=v,
-            quant_tbl_no=0 if c == 0 else 1,
-            width_in_blocks=wb, height_in_blocks=hb,
-            padded_width_in_blocks=wb, padded_height_in_blocks=hb))
-        plane = np.empty((hb, wb, 8, 8), np.int16)
-        for r in range(0, hb, 64):
-            rows = plane[r:r + 64]
-            a = rng.laplace(0.0, scale, rows.shape)
-            a[..., 0, 0] = rng.randint(-512, 512, rows.shape[:2])
-            rows[...] = np.clip(np.round(a), -1023, 1023)
-        coefs.append(plane)
-    quants = {0: np.full((8, 8), 8, np.uint16),
-              1: np.full((8, 8), 12, np.uint16)}
-    return CoefImage(width=width, height=height, jpeg_color_space=3,
-                     components=comps, coefs=coefs, quant_tables=quants,
-                     sampling=Sampling(max_h_samp=2, max_v_samp=2),
-                     markers=[], progressive=False, arithmetic=False,
-                     restart_interval=0, precision=8)
-
-
 GRID_EFFECTS = [("tint", {"cb_value": 3, "cr_value": -2}),
                 ("luminance", {"value": 1})]
 
@@ -339,7 +306,7 @@ def grid_phase(dev, ref, width=12288, height=8192, logo_wh=(256, 64),
 
     import libmodjpeg_tpu as mj
     from libmodjpeg_tpu.parallel import GridSession
-    from bench import make_logo
+    from bench import make_grid_frame, make_logo
 
     img = make_grid_frame(seed, width, height)
     dropon = mj.read_dropon_from_raw(
@@ -433,7 +400,7 @@ def cards_grid_phase(mesh, card0, width=12288, height=8192,
     import libmodjpeg_tpu as mj
     from libmodjpeg_tpu import codec
     from libmodjpeg_tpu.parallel import GridSession
-    from bench import make_logo
+    from bench import make_grid_frame, make_logo
 
     img = make_grid_frame(seed, width, height)
     dropon = mj.read_dropon_from_raw(

@@ -12,6 +12,10 @@ import os
 import jax
 
 CHECKOUT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# JAX caches only programs that took longer than this to compile (its own
+# default is 1 s).  Many of the stream's programs compile in less than a
+# second each; a short-lived worker would re-pay all of them per process.
+MIN_COMPILE_SECS = 0.1
 
 
 def use_compile_cache() -> str:
@@ -21,7 +25,12 @@ def use_compile_cache() -> str:
     ``JAX_COMPILATION_CACHE_DIR``, when set, wins: JAX reads it itself and
     nothing here overrides it.  Otherwise the cache goes to
     ``<checkout>/.cache/jax``.  The path is part of what makes a cache hit,
-    so it never depends on a temporary name, a process id or the time."""
+    so it never depends on a temporary name, a process id or the time.
+    Programs that compile in ``MIN_COMPILE_SECS`` or more are cached, unless
+    ``JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS`` says otherwise."""
+    if not os.environ.get("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"):
+        jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                          MIN_COMPILE_SECS)
     env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
     if env:
         return env

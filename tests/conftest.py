@@ -2,8 +2,9 @@
 
 Tests run on CPU with an 8-device virtual mesh so sharding logic is exercised
 without accelerator hardware (SURVEY.md §4's multi-host test strategy).  Must
-run before jax is imported anywhere.  Tests marked ``gpu`` need an NVIDIA GPU;
-they decide that in a fixture and skip elsewhere (tests/test_gpu.py).
+run before jax is imported anywhere.  Tests marked ``gpu`` need an NVIDIA GPU:
+a run of those alone (``python -m pytest tests -m gpu``) lets the card in,
+and their fixture skips them where there is none (tests/test_gpu.py).
 """
 
 import os
@@ -12,16 +13,19 @@ import sys
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# The platform defaults to the CPU; JAX_PLATFORMS (e.g. "cuda,cpu" for the
-# gpu-marked tests) overrides it.  XLA_FLAGS must be set before backend init
-# to get the 8-device virtual CPU mesh for sharding tests.
+# The suite runs on the CPU whatever JAX_PLATFORMS the environment sets;
+# only a run of the gpu-marked tests alone opens the card (pytest_configure).
+# Backends are not initialized until first use, so switching the platform
+# in-process works.  XLA_FLAGS must be set before backend init to get the
+# 8-device virtual CPU mesh for sharding tests.
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 ).strip()
 sys.path.insert(0, _REPO)
 import jax
 
-jax.config.update("jax_platforms", os.environ.get("JAX_PLATFORMS") or "cpu")
+jax.config.update("jax_platforms", "cpu")
+GPU_PLATFORMS = "cuda,cpu"  # the card, plus the CPU to compare against
 
 import pytest
 
@@ -41,8 +45,10 @@ def pytest_configure(config):
         "differential oracles; auto-applied to tests using ref_tools")
     config.addinivalue_line(
         "markers",
-        "gpu: needs an NVIDIA GPU; skips elsewhere (run with "
-        "JAX_PLATFORMS=cuda,cpu python -m pytest tests -m gpu)")
+        "gpu: needs an NVIDIA GPU; skips elsewhere (run them alone with "
+        "python -m pytest tests -m gpu)")
+    if config.option.markexpr.strip() == "gpu":
+        jax.config.update("jax_platforms", GPU_PLATFORMS)
 
 
 def pytest_collection_modifyitems(config, items):

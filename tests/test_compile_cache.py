@@ -5,6 +5,7 @@ import subprocess
 import sys
 
 import jax
+import pytest
 
 from libmodjpeg_tpu import compile_cache
 
@@ -43,6 +44,31 @@ def test_env_var_unset_uses_checkout(monkeypatch):
         assert os.path.isdir(path)
     finally:
         jax.config.update("jax_compilation_cache_dir", old)
+
+
+@pytest.mark.parametrize("env,want", [
+    (None, compile_cache.MIN_COMPILE_SECS),
+    ("2.5", 2.5),
+])
+def test_min_compile_time(monkeypatch, env, want):
+    """Programs from 0.1 s of compilation up are cached, unless the
+    environment sets JAX's own minimum."""
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR",
+                       jax.config.jax_compilation_cache_dir or "unused")
+    old = jax.config.jax_persistent_cache_min_compile_time_secs
+    try:
+        if env is None:
+            monkeypatch.delenv("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS",
+                               raising=False)
+        else:
+            monkeypatch.setenv("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS",
+                               env)
+            jax.config.update("jax_persistent_cache_min_compile_time_secs",
+                              float(env))
+        compile_cache.use_compile_cache()
+        assert jax.config.jax_persistent_cache_min_compile_time_secs == want
+    finally:
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", old)
 
 
 def test_same_path_across_calls_and_processes(monkeypatch):

@@ -3,9 +3,9 @@ reduced sizes, the device against the CPU backend in one process.
 
 Run them on a machine with the card:
 
-    JAX_PLATFORMS=cuda,cpu python -m pytest tests/test_gpu.py -m gpu
+    python -m pytest tests/test_gpu.py -m gpu
 
-Elsewhere they skip.  ``python chip_smoke.py`` runs the same phases at
+Only such a run opens the card (tests/conftest.py).  Elsewhere they skip.  ``python chip_smoke.py`` runs the same phases at
 full size.
 """
 
@@ -22,8 +22,8 @@ def gpu():
     try:
         return jax.devices("gpu")[0]
     except RuntimeError:
-        pytest.skip("needs an NVIDIA GPU (JAX_PLATFORMS=cuda,cpu python -m "
-                    "pytest tests/test_gpu.py -m gpu)")
+        pytest.skip("needs an NVIDIA GPU (python -m pytest tests/test_gpu.py "
+                    "-m gpu)")
 
 
 def test_library_on_gpu(gpu):
